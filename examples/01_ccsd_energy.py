@@ -3,7 +3,7 @@ import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-jax.config.update("jax_platforms", "cpu")  # drop this line on a TPU host
+jax.config.update("jax_platforms", "cpu")  # drop this line to run on a GPU
 
 import pycc_tpu
 from pycc_tpu.data import moldict

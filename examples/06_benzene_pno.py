@@ -12,7 +12,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import time
 
 import jax
-jax.config.update("jax_platforms", "cpu")  # drop on a TPU host
+jax.config.update("jax_platforms", "cpu")  # drop to run on a GPU
 
 import pycc_tpu
 from pycc_tpu.data import moldict

@@ -1,15 +1,14 @@
-"""At-scale TPU usage: blocked Hamiltonian storage + bf16-gated solve +
+"""At-scale usage: blocked Hamiltonian storage + bf16-gated solve +
 memory-scaling CCSD(T) density.
 
 `storage="blocked"` keeps the dense nact^4 ERI/L on the host and ships only
-the six unique Dirac blocks to the device (~5.6x less HBM, 1.76x faster
-iterations at (o,v)=(32,128) f32); `bf16_until` runs the early residual
-contractions in bfloat16 (another 1.25x) and hands over to full precision
-automatically; `t3_scan=True` computes the (T) correction and its full
+the six unique Dirac blocks to the device (~5.6x less device memory);
+`bf16_until` runs the early residual contractions in bfloat16 and hands
+over to full precision automatically; `t3_scan=True` computes the (T) correction and its full
 density from per-(i,j) T3 slabs (O(no v^3) working set) so the no^3 nv^3
 tensor never exists.
 
-Run on the TPU (default backend) or CPU alike.
+Runs on the GPU (default backend) or the CPU alike.
 """
 
 import os, sys

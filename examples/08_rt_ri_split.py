@@ -1,11 +1,10 @@
-"""Real-time CCSD with real/imag-split amplitudes (TPU-executable RT).
+"""Real-time CCSD with real/imag-split amplitudes.
 
-The TPU runtime has no complex ops at all, so the usual complex-dtype RT
-right-hand side cannot run on-chip.  `rtcc(..., ri_split=True)` carries the
-amplitudes as (re, im) real pairs (ops/ctensor.py) and lowers every complex
-contraction to three real dot_generals — bit-identical trajectories to the
-complex path, executable on the accelerator (0.65 s per RHS evaluation at
-(o,v)=(32,128) f32 on one v5e chip).
+`rtcc(..., ri_split=True)` carries the amplitudes as (re, im) real pairs
+(ops/ctensor.py) and lowers every complex contraction to three real
+dot_generals — bit-identical trajectories to the complex path, for a
+backend without complex arithmetic.  The default (ri_split=False) runs
+complex128 directly.
 """
 
 import os, sys

@@ -12,9 +12,11 @@ Usage: python examples/augment_npz_mu.py df_cache/w10aug.npz --waters 10 \
 """
 
 import argparse
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")  # runnable from any cwd
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # runnable from any cwd
 import time
 
 import numpy as np

@@ -13,9 +13,11 @@ Usage: python examples/bf16_gap_probe.py [--no 32] [--nv 512] [--naux 1632]
 
 import argparse
 import json
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")  # runnable from any cwd
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # runnable from any cwd
 
 
 def main():
@@ -24,7 +26,7 @@ def main():
     ap.add_argument("--nv", type=int, default=512)
     ap.add_argument("--naux", type=int, default=1632)
     # 128 blocks: the f32 pass at (32,512) holds the blk*v^3 ladder W
-    # beside ~6 o^2v^2 temps; nblocks=64 measured 17.7 G > 15.75 G HBM
+    # beside ~6 o^2v^2 temps
     ap.add_argument("--nblocks", type=int, default=128)
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
@@ -33,8 +35,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from pycc_tpu.utils import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from pycc_tpu.models import dfccsd as dfq
@@ -74,7 +76,7 @@ def main():
 
     jr = jax.jit(resid, static_argnums=(4,))
     if no * no * nv * nv * 4 > 9e8:
-        # the ONE-program f32 residual exceeds HBM past ~1 GB of o^2v^2
+        # the ONE-program f32 residual exceeds a 16 GB device past ~1 GB of o^2v^2
         # (measured 17.7 G at (32,512)); evaluate the f32 side through
         # the host-sequenced split programs instead (same fixed point,
         # tested to 1e-13 — tests/test_017)

@@ -17,9 +17,11 @@ Usage: python examples/df_post_at_scale.py [--no 32] [--nv 512]
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")  # runnable from any cwd
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # runnable from any cwd
 import time
 
 
@@ -38,8 +40,8 @@ def main():
     nact = no + nv
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from pycc_tpu.utils import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from pycc_tpu import ccwfn, cchbar, cclambda, cceom, ccresponse

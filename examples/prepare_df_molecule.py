@@ -10,7 +10,7 @@ and saves everything the on-chip solver needs to an .npz:
     escf converged SCF total energy
 
 No four-index tensor exists at any point (the round-2 pipeline needed a
-dense nact^4 ERI as factorization input — see VERDICT round 2, Missing #1).
+dense nact^4 ERI as factorization input).
 
 Usage:
     python examples/prepare_df_molecule.py --mol '(H2O)_7' --basis aug-cc-pvdz \
@@ -19,9 +19,11 @@ Usage:
 """
 
 import argparse
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")  # runnable from any cwd
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # runnable from any cwd
 import time
 
 import numpy as np

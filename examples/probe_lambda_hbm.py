@@ -1,5 +1,5 @@
-"""Compile-probe the at-scale DF Lambda programs and print the TPU
-compiler's own HBM accounting (temp/argument/output bytes) — run BEFORE
+"""Compile-probe the at-scale DF Lambda programs and print the
+compiler's own device-memory accounting (temp/argument/output bytes) — run BEFORE
 an at-scale Lambda to validate fit and pre-warm the compile cache.
 
 The three host-sequenced residual programs (models/dfhbar.py:
@@ -10,6 +10,7 @@ compiles instantly afterwards.
 
 Usage: python examples/probe_lambda_hbm.py [no nv naux]
 """
+import os
 import sys
 import time
 from functools import partial
@@ -17,10 +18,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # runnable from any cwd
+from pycc_tpu.utils import setup_compile_cache
+setup_compile_cache()
 from pycc_tpu.models.dfccsd import DFERI
 from pycc_tpu.models.dfhbar import (DFHBar, lambda_r1_df,
                                     lambda_r2_ladder_df,

@@ -1,24 +1,26 @@
 """AOT compile-probe the f32 split-residual programs at w14 scale.
 
 (H2O)_14 aug-cc-pVDZ is (56,504) naux=5414: Bvv alone is 5.5 GB f32 and
-the o^2v^2 block is 3.19 GB, so several split programs sit near the
-15.75 GB HBM line.  Lowers each with ShapeDtypeStruct args (no device
+the o^2v^2 block is 3.19 GB, so several split programs are near a
+16 GB device's capacity.  Lowers each with ShapeDtypeStruct args (no device
 arrays) so the verdict lands BEFORE the capture and the persistent
 cache is pre-seeded.
 
 Run: python examples/probe_w14_split.py [no nv naux [dtype]]
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")  # runnable from any cwd
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # runnable from any cwd
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pycc_tpu.utils import setup_compile_cache
+setup_compile_cache()
 
 from pycc_tpu.models import dfccsd as q
 from pycc_tpu.models.dfccsd import DFERI

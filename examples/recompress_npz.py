@@ -9,18 +9,20 @@ max_naux eigenvectors: the OPTIMAL rank-k approximation of the ERI
 supermatrix in the Frobenius norm, ~40 min at w14 size.
 
 Why cap at all: at (56,504) naux=5414 the f32 factor blocks alone are
-6.2 GB of the 15.75 GB HBM — with t2 + r2 resident there is no room
-for any formulation of the residual.  naux=4200 restores ~1 GB of
+6.2 GB, which leaves a 16 GB device no room for t2 + r2 and any
+formulation of the residual.  naux=4200 restores ~1 GB of
 program headroom; the discarded eigenvalue tail is reported so the
 capture can quote the factorization error honestly.
 
 Usage: python examples/recompress_npz.py in.npz out.npz [max_naux]
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # runnable from any cwd
 
 import numpy as np
 

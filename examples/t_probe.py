@@ -1,4 +1,4 @@
-"""(T) slab-scan roofline probe (VERDICT r4 weak #1): measure the wall at
+"""(T) slab-scan roofline probe: measure the wall at
 (o, v) across the bandwidth knobs — f32 vs bf16 slabs, j-chunk width —
 and report TFLOP/s against the analytic flop count plus the implied
 slab-traffic bandwidth, so PERF.md can state WHICH resource binds.
@@ -13,10 +13,12 @@ Usage:  python examples/t_probe.py --o 32 --v 128 --configs f32:2,bf16:2,bf16:8
 
 import argparse
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # runnable from any cwd
 
 import numpy as np
 
@@ -31,8 +33,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from pycc_tpu.utils import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     from pycc_tpu.triples import t_vikings_scan_core, t_scan_flops
 

@@ -1,11 +1,10 @@
-"""pycc_tpu: a TPU-native coupled-cluster framework (JAX/XLA/Pallas/pjit).
+"""pycc_tpu: a coupled-cluster framework in JAX (XLA, GSPMD sharding).
 
 A ground-up rebuild of the capabilities of jattakumi/pycc (RHF-based CCD /
 CC2 / CCSD / CCSD(T) / CC3 energies, Lambda amplitudes, densities, EOM-CCSD,
-linear response, real-time propagation, local correlation) designed for TPU:
-jitted dot_general contraction graphs, on-device DIIS/Davidson/RK solvers,
-GSPMD mesh sharding for the v^4 tensors, and Pallas kernels on the hot
-contractions.  The reference's Psi4 integral layer is replaced by a native
+linear response, real-time propagation, local correlation) for an
+accelerator: jitted dot_general contraction graphs, on-device
+DIIS/Davidson/RK solvers, and GSPMD mesh sharding for the v^4 tensors.  The reference's Psi4 integral layer is replaced by a native
 host-side SCF engine (pycc_tpu.scf).
 """
 

@@ -815,8 +815,8 @@ class ccresponse:
         """Shared mixed-precision orchestration for the perturbed-
         amplitude solvers, same scheme as ccwfn.solve_cc_mixed /
         cclambda.solve_lambda_mixed: rebuild HBAR + pertbar at float32,
-        converge X (or Y) to the f32 noise floor (cheap iterations on
-        the TPU, where f64 is emulated), then rebuild everything at
+        converge X (or Y) to the f32 noise floor (cheap iterations),
+        then rebuild everything at
         float64 and refine the same vectors — the perturbed-amplitude
         fixed point is dtype-independent given converged t (and l), so
         the refined pseudoresponse equals a pure-f64 solve.  Completes

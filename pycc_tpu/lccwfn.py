@@ -123,7 +123,7 @@ class lccwfn:
             pre = self._pre
 
             # pre enters as a jit ARGUMENT (keeps shardings first-class
-            # and big closure constants out of remote-compile requests)
+            # and big closure constants out of the compiled program)
             @jax.jit
             def step_local(pre, t1r, t2r, state, do_extrap):
                 r1, r2 = res_fn(pre, t1r, t2r)

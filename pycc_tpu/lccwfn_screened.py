@@ -1,8 +1,7 @@
 """Pair-screened local CCD: compact strong-pair stacks.
 
 The padded-batch local equations (lccwfn_local.py) materialize pair-pair
-stacks of shape (no, no, no, no, D, D) — no^4 D^2 memory, the wall the
-round-2 VERDICT flagged (the reference instead walks ragged per-pair
+stacks of shape (no, no, no, no, D, D) — no^4 D^2 memory (the reference instead walks ragged per-pair
 lists, /root/reference/pycc/local.py:973-1031).  This module stores every
 pair-pair quantity over a COMPACT strong-pair list: pairs whose local-MP2
 pair energy is below `pair_cutoff` are frozen at their MP2 amplitudes

@@ -2,11 +2,11 @@
 full nact^4 ERI + L pair.
 
 The reference keeps full <pq|rs> and L = 2<pq|rs> - <pq|sr> resident
-(hamiltonian.py:36-39), which on a TPU costs 2 x nact^4 HBM *plus* XLA tile
-padding when nact is not a lane multiple (160 -> 1.6x).  Here only the six
+(hamiltonian.py:36-39), which costs 2 x nact^4 of device memory *plus*
+tile padding when nact is not a multiple of the tile width.  Here only the six
 canonical occupied/virtual blocks are stored -- oooo, ooov, oovv, ovov,
 ovvv, vvvv -- at (o,v)=(32,128) that is ~1.5 GB against ~8.4 GB, and every
-block with v-sized trailing dims is exactly lane-aligned.  All sixteen
+block with v-sized trailing dims avoids the padding of nact.  All sixteen
 slice patterns and every L block are *views*: derived inside jit via the
 8-fold permutational symmetry of real Dirac integrals, so XLA folds the
 transposes into the consuming dot_general's dimension numbers (no copies).

@@ -28,8 +28,8 @@ def vvvv_contract(tau, W):
     """'ijef,abef->ijab' as a single (o^2, v^2) x (v^2, v^2) matmul.
 
     The einsum lowering can materialize an (o-batch, v, v, v, v) temp that
-    blows HBM at production sizes; the reshaped dot maps straight onto the
-    MXU with no such buffer."""
+    blows device memory at production sizes; the reshaped dot is one
+    matmul with no such buffer."""
     from ..ops.ctensor import ct_dot
     no1, no2, nv, _ = tau.shape
     na, nb = W.shape[0], W.shape[1]

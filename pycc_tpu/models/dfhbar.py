@@ -577,7 +577,7 @@ def lambda_r2_small_a_df(dfh, l1, l2, no, S2=None):
     Hov/Hooov terms.
 
     The fused residual holds ~14 simultaneous o^2 v^2 temps — 12.4 GB
-    at (no,nv)=(40,360), over the 15.75 GB v5e budget on its own; a
+    at (no,nv)=(40,360), too much for a 16 GB device on its own; a
     two-program split's seed still carried 7.4 GB and a three-way
     'small' 5.8 GB (the compiler's memory_analysis;
     examples/probe_lambda_hbm.py) on top of the ~10 GB resident set.

@@ -10,7 +10,7 @@ i.e. in the repo's Dirac convention  ERI[p,q,r,s] = (pr|qs) ~=
 einsum('Ppr,Pqs->pqrs', B, B).  This is the memory architecture that breaks
 the nact^4 wall the reference hits at /root/reference/pycc/hamiltonian.py:36-39
 (dense `mo_eri`): the CC solver works from B (naux * nact^2) and assembles
-any four-index quantity it needs on the fly as MXU matmuls
+any four-index quantity it needs on the fly as matmuls
 (models/dfccsd.py).
 
 Two factorization routes exist:

@@ -2,11 +2,12 @@
 
 Replaces the reference's opt_einsum/torch dispatch backend
 (/root/reference/pycc/utils.py:141-187).  Under jit every contraction
-lowers to dot_general and is fused/tiled by XLA onto the MXU; there is no
+lowers to dot_general and is fused/tiled by XLA; there is no
 per-call device migration — operands live where the mesh puts them.
 
 CTensor (real/imag-split complex, ops/ctensor.py) operands dispatch to
-Karatsuba's three real contractions — the TPU runtime has no complex ops.
+Karatsuba's three real contractions, for a backend without complex
+arithmetic.
 """
 
 import jax.numpy as jnp

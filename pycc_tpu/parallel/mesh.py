@@ -4,10 +4,12 @@ New first-class component with no reference counterpart (the reference's
 only multi-device mechanism is a CPU<->GPU offload split,
 /root/reference/pycc/ccwfn.py:205-229).  Here the O(v^4) ERI tensor and the
 doubles amplitudes are sharded over a device mesh with named axes; the
-jitted residual graphs then run SPMD with XLA-generated ICI collectives
-(all-gather / reduce-scatter), never staging 4-index tensors through host.
+jitted residual graphs then run SPMD with XLA-generated collectives
+(all-gather / reduce-scatter over NVLink between cards, through NCCL),
+never staging 4-index tensors through host.
 
-Layout: a 2D mesh ('va', 'vb').  ERI/L are sharded over their last two
+Layout: a 2D mesh ('va', 'vb'), shaped by the algorithm (the two virtual
+axes), not by the wiring: every card reaches every other at one rate.  ERI/L are sharded over their last two
 (virtual-heavy) axes; t2/r2 over their two virtual axes; 2-index tensors and
 o-space blocks are replicated.  With this layout the hot Hvvvv/Wabef-type
 contractions ('ijef,abef->ijab') contract along replicated axes locally and
@@ -92,7 +94,7 @@ def shard_pair_stacks(pre, mesh, no):
     ('va', 'vb'); compact screened stacks (leading dim = the strong-pair
     count P) shard over 'va'; everything else replicates.  The jitted
     pair-space residuals then run SPMD, with GSPMD gathering the
-    cross-pair (Sr-stitched m,n) couplings over ICI."""
+    cross-pair (Sr-stitched m,n) couplings."""
     out = {}
     for k, x in pre.items():
         if not hasattr(x, "ndim"):
@@ -149,7 +151,7 @@ def shard_blocks(blocks, mesh):
     block over its trailing two; o-heavy blocks are replicated (they are
     tiny).  Combined with blocked storage this is the full scaling
     configuration: per-device memory ~ (v^4 + o v^3)/n_devices + small
-    replicated blocks, and XLA inserts the ICI collectives for the ladder
+    replicated blocks, and XLA inserts the collectives for the ladder
     contractions."""
     from ..models.blocked import ERIBlocks
     return ERIBlocks(

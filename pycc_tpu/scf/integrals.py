@@ -7,7 +7,7 @@ traceless quadrupole, nabla, angular momentum) needed by the CC property
 and real-time modules.
 
 All integrals are computed in float64 on the host (numpy/scipy); results
-feed the TPU-side Hamiltonian pytree.  Vectorization is over primitive
+feed the device-side Hamiltonian pytree.  Vectorization is over primitive
 pairs/quartets per shell block, with Boys functions from scipy's regularized
 incomplete gamma.
 """

@@ -1,31 +1,83 @@
 """ctypes bridge to the native C++ McMurchie-Davidson ERI engine.
 
-Builds native/libmdints.so on first use (g++ -O3) and exposes
-`eri_native(basis)` with the same output as integrals.eri().  Falls back to
-the pure-Python engine if the toolchain or build is unavailable.
+Builds the committed source native/mdints.cpp on first use into
+native/build/<key>/libmdints.so, where <key> hashes the source, the
+compiler's version and the host CPU (the build uses -march=native, so a
+library is valid only on the CPU it was built for), and exposes
+`eri_native(basis)` with the same output as integrals.eri().  The
+integral callers fall back to the pure-Python engine if the toolchain or
+build is unavailable; `available()` says which engine is in use.
 """
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
 
+from ..utils.log import logger as log
+
 _LIB = None
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_ROOT, "native", "mdints.cpp")
-_SO = os.path.join(_ROOT, "native", "libmdints.so")
+_BUILD = os.path.join(_ROOT, "native", "build")
+_CXX = "g++"
+_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
+
+
+def host_cpu_id():
+    """Architecture, model name and feature flags of the host CPU."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        lines = []
+    keep = sorted({ln for ln in lines
+                   if ln.startswith(("model name", "flags"))})
+    return "\n".join([platform.machine(), platform.processor()] + keep)
+
+
+def compiler_id():
+    """The compiler's own version banner."""
+    return subprocess.run([_CXX, "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def build_key(source, compiler, cpu):
+    """Key of one build: changes with the source bytes, the compiler, the
+    host CPU or the flags."""
+    h = hashlib.sha256()
+    for part in (source, compiler.encode(), cpu.encode(),
+                 " ".join(_FLAGS).encode()):
+        h.update(hashlib.sha256(part).digest())
+    return h.hexdigest()[:16]
+
+
+def build(src=_SRC, build_dir=_BUILD, cpu=None):
+    """Path of the library built from `src` for this compiler and host,
+    compiling it first when no build with that key exists.  The library
+    is written under a temporary name and renamed into place, so
+    concurrent builders never load a half-written file."""
+    with open(src, "rb") as f:
+        source = f.read()
+    key = build_key(source, compiler_id(),
+                    host_cpu_id() if cpu is None else cpu)
+    so = os.path.join(build_dir, key, "libmdints.so")
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        tmp = "%s.%d.tmp" % (so, os.getpid())
+        subprocess.run([_CXX, *_FLAGS, "-o", tmp, src], check=True)
+        os.replace(tmp, so)
+    return so
 
 
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    if not os.path.exists(_SO) or (os.path.exists(_SRC) and
-                                   os.path.getmtime(_SRC) > os.path.getmtime(_SO)):
-        subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                        "-o", _SO, _SRC], check=True)
-    lib = ctypes.CDLL(_SO)
+    lib = ctypes.CDLL(build())
     lib.md_eri.restype = ctypes.c_int
     lib.md_eri.argtypes = [
         ctypes.c_int,
@@ -142,10 +194,12 @@ class ERIContext:
 
 
 def available():
+    """True when the native engine builds and loads on this host."""
     try:
         _load()
         return True
-    except Exception:
+    except (OSError, subprocess.CalledProcessError) as exc:
+        log.warning("native integral engine unavailable: %s" % exc)
         return False
 
 

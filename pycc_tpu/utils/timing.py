@@ -14,11 +14,16 @@ from .log import logger as log
 
 class Timers:
     """Named wall-clock timers with call counts: Timers.report() prints an
-    aggregate table."""
+    aggregate table.  `first` keeps each timer's first call apart, since
+    that call includes compiling the programs it dispatches."""
 
     def __init__(self):
+        self.reset()
+
+    def reset(self):
         self.total = defaultdict(float)
         self.count = defaultdict(int)
+        self.first = {}
 
     @contextlib.contextmanager
     def time(self, name):
@@ -26,8 +31,10 @@ class Timers:
         try:
             yield
         finally:
-            self.total[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.total[name] += dt
             self.count[name] += 1
+            self.first.setdefault(name, dt)
 
     def report(self):
         lines = ["%-30s %10s %8s" % ("timer", "total(s)", "calls")]

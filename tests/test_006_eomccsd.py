@@ -70,7 +70,7 @@ def test_eom_ccsd_h2o_ccpvdz_frozen_core():
     assert eom.converged
     ref = np.array([0.246365746068, 0.313591867750, 0.354390071110])
     assert np.allclose(E, ref, atol=1e-7), E
-    # per-root residual norms actually meet r_conv (VERDICT weak #1)
+    # per-root residual norms actually meet r_conv
     import jax.numpy as jnp
     S = np.asarray(eom._sigma(jnp.asarray(C)))
     G = C @ S.T

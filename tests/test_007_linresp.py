@@ -39,8 +39,8 @@ def test_linresp_polarizability():
 def test_conditioning_probe_and_warning():
     """estimate_conditioning discriminates a genuinely near-pole omega
     (within ~1e-3 of the lowest EOM root) from a well-conditioned one,
-    and solve_right warns exactly at the near-pole frequency (VERDICT
-    r4 item 8: a runtime signal, not just a docstring).  The reference
+    and solve_right warns exactly at the near-pole frequency (a runtime
+    signal, not just a docstring).  The reference
     has no conditioning diagnostics (ccresponse.py:336-467)."""
     import warnings as _w
     from types import SimpleNamespace

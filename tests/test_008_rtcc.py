@@ -195,8 +195,7 @@ def test_rtcc_cc2_smoke():
 def test_ri_split_matches_complex():
     """Real/imag-split RT (rtcc(ri_split=True), ops/ctensor.py): RHS and
     short rk4 trajectories equal the complex-dtype path to ~1e-17.  This is
-    the TPU-executable formulation (the accelerator runtime has no complex
-    ops at all)."""
+    the formulation for a backend without complex ops."""
     cc, lam, dens = _setup("He", "cc-pvdz")
     V = gaussian_laser(0.01, 0, 0.01, 0.05)
     rt_c = pycc_tpu.rtcc(cc, lam, dens, V)

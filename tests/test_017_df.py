@@ -95,8 +95,8 @@ def test_df_fused_solver(h2o_sto3g):
 
 def test_mp2_guess_scan_equals_fused():
     """The at-scale DP guess (f32-assembled, widened — auto-selected for
-    big f64 constructions, where BOTH f64-emulated assembly forms
-    compile-OOM on TPU at 21.4/15.75 GB) matches the exact f64 one-shot
+    big f64 constructions, where an emulated-f64 backend cannot compile
+    either f64 assembly form) matches the exact f64 one-shot
     guess to f32 relative accuracy: the guess is only a starting point,
     and both mixed stages iterate to dtype-independent fixed points
     (test_027 pins the fixed-point equality)."""
@@ -238,8 +238,8 @@ def test_df_solve_without_diis(h2o_sto3g):
 
 def test_df_split_residual_and_solve(h2o_sto3g):
     """The host-sequenced seven-program CCSD residual (the at-scale path:
-    the ONE-program form holds ~11 simultaneous o^2v^2 temps and measured
-    21.6 GB of 15.75 GB HBM at (48,432) f32) equals the fused residual
+    the ONE-program form holds ~11 simultaneous o^2v^2 temps, over 16 GB
+    at (48,432) f32) equals the fused residual
     term by term on arbitrary amplitudes, and the forced-split solve with
     the lean factor-wise update reaches the fused fixed point."""
     import jax

@@ -2,7 +2,7 @@
 
 The RHS (T residuals, Lambda residuals with the HBAR rebuilt under the
 field-dressed Fock, phase quasienergy), the step observables (density-
-based Lagrangian, one-pdm dipole), and the re/im-split TPU mode must all
+based Lagrangian, one-pdm dipole), and the re/im-split mode must all
 equal the dense path on exact factors.  The reference's RT driver needs
 the dense MO ERI (/root/reference/pycc/rt/rtcc.py via hamiltonian.py:36)
 — RT at DF scale has no counterpart there.

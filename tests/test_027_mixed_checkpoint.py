@@ -175,10 +175,9 @@ def test_mixed_df_split_residual():
     assert cc._host_residual_fn is not None  # the split was really active
     assert abs(emx - E_CCSD_STO3G) < 1e-9
     # the f64 refinement stage must have routed through the scan
-    # formulation (no o^2v^2-output dot anywhere): the f64-emulated TPU
-    # backend widens every f64 dot output ~8x its natural bytes, so the
-    # seven-program split cannot compile in f64 at scale (measured
-    # round-5 OOM at (40,360)).
+    # formulation (no o^2v^2-output dot anywhere): a backend that emulates
+    # f64 widens every f64 dot output ~8x its natural bytes, so the
+    # seven-program split cannot compile there in f64 at scale.
     from pycc_tpu.models.dfccsd import residuals_ccsd_df_scan_host
     assert cc._host_residual_fn.func is residuals_ccsd_df_scan_host
 

@@ -63,7 +63,7 @@ def test_local_mp2_pao():
 
 
 def test_local_mp2_pair_energies_vs_hylleraas():
-    """Pair-LEVEL oracle (VERDICT r4 item 9): at cutoff=0 every DLPNO-MP2
+    """Pair-LEVEL oracle: at cutoff=0 every DLPNO-MP2
     pair energy e_pair[i,j] must equal the Hylleraas pair energy
     sum_ab t2[i,j] * L[i,j] from the full-space loop the PNO build uses
     — not just the total.  Reference anchor: the pair loop of
